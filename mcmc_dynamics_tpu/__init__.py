@@ -1,34 +1,55 @@
-"""mcmc_dynamics_tpu — a TPU-native Bayesian stellar-kinematics framework.
+"""Former import name of :mod:`mcmc_dynamics_jax`, kept so that existing
+scripts and pickled checkpoints still import.  Deprecated.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of the reference package
-``skamann/mcmc-dynamics``: deriving the internal kinematics of star clusters (rotation
-amplitude & axis, dispersion profile, field-star contamination, cluster centre/elongation,
-axisymmetric Jeans/JAM models) from per-star radial-velocity catalogs.
-
-Architecture (TPU-first, not a port):
-
-* likelihoods are pure functions ``lnlike(theta, data)`` vmapped over walkers;
-* the affine-invariant ensemble sampler runs natively inside ``lax.scan`` so thousands
-  of walkers advance per XLA step (the reference drives ``emcee`` through a fork-based
-  process pool, one Python callback per walker proposal);
-* hot star-catalog reductions can run as fused Pallas kernels over HBM-resident data;
-* multi-chip runs shard walkers/stars/bins over an ICI mesh with ``psum``'d
-  log-probabilities (see ``mcmc_dynamics_tpu.parallel``).
+Importing this package returns :mod:`mcmc_dynamics_jax` itself, and every
+submodule path under the old name resolves to the module of the same path
+under the new one: the same module objects, so classes, ``isinstance`` checks
+and module state agree.  The first import warns with a DeprecationWarning.
 """
 
-from . import units
-from .parameters import Parameter, Parameters, CompiledParameters
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.4.0"
+import mcmc_dynamics_jax
 
-__all__ = [
-    "units", "Parameter", "Parameters", "CompiledParameters",
-]
+_OLD, _NEW = __name__, mcmc_dynamics_jax.__name__
 
 
-def default_dtype():
-    """Preferred floating dtype: float64 when x64 is enabled (CPU tests/parity),
-    float32 otherwise (TPU throughput)."""
-    import jax
-    import jax.numpy as jnp
-    return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.x.y`` to the module ``<new>.x.y``."""
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(_OLD + "."):
+            return None
+        real = importlib.util.find_spec(_NEW + fullname[len(_OLD):])
+        if real is None:
+            return None
+        return importlib.util.spec_from_loader(fullname, self,
+                                               origin=real.origin)
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        self._specs[spec.name] = module.__spec__
+        return module
+
+    def get_code(self, fullname):
+        # ``python -m <old>.x.y`` runs the code of ``<new>.x.y``
+        name = _NEW + fullname[len(_OLD):]
+        return importlib.util.find_spec(name).loader.get_code(name)
+
+    def exec_module(self, module):
+        # the import system stamps the alias spec on the module it was
+        # handed; give the real module its own spec back
+        module.__spec__ = self._specs.pop(module.__spec__.name)
+
+
+warnings.warn(f"the package name {_OLD!r} is deprecated; import {_NEW!r}",
+              DeprecationWarning, stacklevel=2)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = mcmc_dynamics_jax

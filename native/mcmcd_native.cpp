@@ -1,6 +1,6 @@
-// Native runtime support for mcmc_dynamics_tpu.
+// Native runtime support for mcmc_dynamics_jax.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library covers the *runtime around
+// The device compute path is JAX/XLA/Pallas; this library covers the *runtime around
 // it*: high-throughput catalog ingest (CSV parse ~10x pandas for plain numeric
 // tables), a memory-mapped binary catalog cache for instant reloads of large
 // surveys, and the greedy radial binning (exact port of the algorithm contract in

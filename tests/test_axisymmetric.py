@@ -9,10 +9,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.models import AnalyticalProfiles, Axisymmetric
-from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
-from mcmc_dynamics_tpu.utils import DataReader, MgeReader, Table
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.models import AnalyticalProfiles, Axisymmetric
+from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
+from mcmc_dynamics_jax.utils import DataReader, MgeReader, Table
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -197,7 +197,7 @@ class TestMgeGrid:
     reference's per-call file IO, axisymmetric.py:245-254)."""
 
     def _grid_files(self, tmp_path):
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax.utils import Table
         files = {}
         for k, (dra, ddec) in enumerate([(0.0, 0.0), (0.002, 0.0), (0.0, 0.002)]):
             t = Table({"n": np.array([1, 2]),
@@ -292,7 +292,7 @@ class TestAxisymmetricWithBackground:
         """JAM likelihood mixed with a fixed field-star background population
         through per-star membership priors (reference runner.py:272-286 applied
         to the JAM model)."""
-        from mcmc_dynamics_tpu.background import Gaussian
+        from mcmc_dynamics_jax.background import Gaussian
 
         data, lum, mass = _mock_jam_data(n=80, seed=9)
         rng = np.random.default_rng(10)
@@ -319,7 +319,7 @@ class TestAnalyticalProfilesGridAnchors:
     the MGE itself (previously grid point 0's anchors were used everywhere)."""
 
     def _grid_files(self, tmp_path):
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax.utils import Table
         files = {}
         # grid point 1 has a very different outer width -> different anchors
         for k, (dra, widths) in enumerate([(0.0, (10.0, 40.0)),
@@ -387,7 +387,7 @@ class TestMassPosteriorGridSelection:
     def test_mass_posterior_uses_nearest_grid_point(self, tmp_path):
         """Regression: grid mode always used grid point 0's mass MGE; it must
         use the point the likelihood selects for each sample's centre."""
-        from mcmc_dynamics_tpu.models.jam.moments import PC_PER_ARCSEC_PER_KPC
+        from mcmc_dynamics_jax.models.jam.moments import PC_PER_ARCSEC_PER_KPC
 
         data, _, _ = _mock_jam_data(n=40)
         files = TestMgeGrid._grid_files(TestMgeGrid(), tmp_path)
@@ -433,7 +433,7 @@ class TestJamPredictFields:
         dec = u.Quantity([DEC_C], "deg")     # x = +20 arcsec on the major axis
         pred = fit.predict_fields(chain, n_burn=0, ra=ra, dec=dec, n_samples=5)
 
-        from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
         li, ls, lq = lum.as_arrays()
         mi, ms, mq = mass.as_arrays()
         incl = math.acos(math.sqrt((0.875 ** 2 - 0.4 ** 2) / (1 - 0.4 ** 2)))

@@ -5,9 +5,9 @@ import math
 
 import numpy as np
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.mock import make_mock_cluster
-from mcmc_dynamics_tpu.models import ModelFit
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.mock import make_mock_cluster
+from mcmc_dynamics_jax.models import ModelFit
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -46,46 +46,6 @@ class TestFreeCenterFit:
         assert d_ra < 12.0, d_ra
         assert d_dec < 12.0, d_dec
 
-    def test_freecenter_tier_matches_generic_lnprob(self):
-        """The fused free-centre tier (_build_lnprob_freecenter, interpret
-        mode here) must equal the generic per-pair-trig batched lnprob —
-        incl. out-of-bounds walkers (-inf from the prior, not the kernel)."""
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
-
-        data, truth = make_mock_cluster(n_stars=150, ra_center=RA_C,
-                                        dec_center=DEC_C, sigma_max=8.0,
-                                        v_max=3.0, theta_0=0.4, r_peak=50.0,
-                                        a=40.0, seed=3)
-        params = ModelFit.default_parameters()
-        params["r_peak"].set(min=5.0, max=300.0)
-        params["a"].set(min=5.0, max=300.0)
-        span = 0.02
-        params["ra_center"].set(value=RA_C, min=RA_C - span, max=RA_C + span)
-        params["dec_center"].set(value=DEC_C, min=DEC_C - span,
-                                 max=DEC_C + span)
-        fit = ModelFit(data, parameters=params, seed=9)
-        assert fit._canonical_freecenter_layout()
-        assert not fit.center_is_fixed()
-
-        rng = np.random.default_rng(7)
-        W = 16
-        pos = np.column_stack([
-            rng.normal(0, 1, W), np.exp(rng.normal(2.0, 0.2, W)),
-            rng.uniform(20, 60, W), rng.normal(0, 3, W), rng.normal(0, 3, W),
-            rng.uniform(30, 90, W),
-            RA_C + 3e-3 * rng.normal(size=W),
-            DEC_C + 3e-3 * rng.normal(size=W)])
-        pos[-1, 6] = RA_C + 0.1          # out of the prior box -> -inf
-        thetas = jnp.asarray(pos, fit.dtype)
-
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(fit._build_lnprob_freecenter()(thetas))
-        from mcmc_dynamics_tpu.models.base import Runner
-        expected = np.asarray(Runner.build_lnprob_batched(fit)(thetas))
-        assert expected[-1] == -np.inf and got[-1] == -np.inf
-        np.testing.assert_allclose(got[:-1], expected[:-1], rtol=1e-11)
-
     def _freecenter_fit(self, n=140, seed=2):
         data, _ = make_mock_cluster(n_stars=n, ra_center=RA_C,
                                     dec_center=DEC_C, sigma_max=8.0,
@@ -108,35 +68,13 @@ class TestFreeCenterFit:
             RA_C + 3e-3 * rng.normal(size=W),
             DEC_C + 3e-3 * rng.normal(size=W)])
 
-    def test_freecenter_partial_tier_matches(self, monkeypatch):
-        """The per-shard free-centre partial sums (star constants as data
-        columns) must reproduce the full lnlike when fed the whole catalog."""
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
-
-        fit = self._freecenter_fit()
-        monkeypatch.setattr(ModelFit, "_pallas_freecenter_eligible",
-                            lambda self: True)   # CPU: drive via interpret
-        fn = fit.build_lnlike_partial_batched()
-        assert fn is not None
-        data = fit.prepare_data(dict(fit._data_arrays))
-        assert "fc_dx0" in data
-        data["mask"] = jnp.ones_like(data["v"])
-
-        rng = np.random.default_rng(13)
-        thetas = jnp.asarray(self._walker_draws(8, rng), fit.dtype)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(fn(thetas, data))
-        expected = np.array([float(fit.lnlike(t)) for t in thetas])
-        np.testing.assert_allclose(got, expected, rtol=1e-11)
-
     def test_identity_offsets_constant_fit(self):
         """ConstantFit free-centre lnprob rides the same exact trig-identity
         star constants; must equal the raw spherical-trig evaluation."""
         import jax.numpy as jnp
 
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.utils.coordinates import xy_offset_rad
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.utils.coordinates import xy_offset_rad
 
         data, _ = make_mock_cluster(n_stars=120, ra_center=RA_C,
                                     dec_center=DEC_C, sigma_max=8.0,
@@ -175,7 +113,7 @@ class TestFreeCenterFit:
         constants must equal the raw trig branch to float64 precision."""
         import jax.numpy as jnp
 
-        from mcmc_dynamics_tpu.models import Axisymmetric
+        from mcmc_dynamics_jax.models import Axisymmetric
         from test_axisymmetric import _base_params, _mock_jam_data
 
         data, lum, mass = _mock_jam_data(n=80, seed=1)
@@ -209,7 +147,7 @@ class TestFreeCenterFit:
         import jax
         import jax.numpy as jnp
 
-        from mcmc_dynamics_tpu.parallel import make_mesh, star_sharded_lnprob
+        from mcmc_dynamics_jax.parallel import make_mesh, star_sharded_lnprob
 
         fit = self._freecenter_fit(n=141)       # 141 % 4 != 0 -> sp padding
         mesh = make_mesh(("dp", "sp"), (2, 4))

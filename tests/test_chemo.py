@@ -7,9 +7,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.models import ChemoProfiles
-from mcmc_dynamics_tpu.utils import DataReader, MgeReader, Table
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.models import ChemoProfiles
+from mcmc_dynamics_jax.utils import DataReader, MgeReader, Table
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -179,7 +179,7 @@ class TestChemoRegressions:
         """AnalyticalProfiles tightens r_mlr bounds to the MGE sigma range
         after construction; the stock lognormal initials (median 1 arcsec)
         must be replaced so sampling can start."""
-        from mcmc_dynamics_tpu.models import AnalyticalProfiles
+        from mcmc_dynamics_jax.models import AnalyticalProfiles
 
         data = _data()
         lum, mass = _tagged_mges()    # sigmas 10-40 arcsec: lognormal fails

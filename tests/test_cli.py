@@ -11,7 +11,7 @@ import pytest
 
 class TestClusterElongation:
     def test_end_to_end(self, tmp_path, monkeypatch):
-        from mcmc_dynamics_tpu.cli.cluster_elongation import main
+        from mcmc_dynamics_jax.cli.cluster_elongation import main
 
         rng = np.random.default_rng(0)
         n = 800
@@ -36,7 +36,7 @@ class TestClusterElongation:
         assert out.exists() and out.stat().st_size > 5000
 
     def test_eccentricity_recovered(self):
-        from mcmc_dynamics_tpu.utils import get_eccentricity_and_pa
+        from mcmc_dynamics_jax.utils import get_eccentricity_and_pa
 
         rng = np.random.default_rng(1)
         n = 4000
@@ -50,7 +50,7 @@ class TestClusterElongation:
 
 class TestRunConfigLoading:
     def test_catalog_loader_subtracts_vsys(self, tmp_path):
-        from mcmc_dynamics_tpu.cli.run import load_catalog
+        from mcmc_dynamics_jax.cli.run import load_catalog
 
         catalog = tmp_path / "cat.csv"
         with open(catalog, "w") as f:
@@ -60,7 +60,7 @@ class TestRunConfigLoading:
         np.testing.assert_allclose(data.data.value("v"), [-0.7, 2.3], rtol=1e-12)
 
     def test_background_builder(self, tmp_path):
-        from mcmc_dynamics_tpu.cli.run import build_background
+        from mcmc_dynamics_jax.cli.run import build_background
 
         field = tmp_path / "field.csv"
         with open(field, "w") as f:
@@ -75,8 +75,8 @@ class TestRunConfigLoading:
     def test_move_spec_with_hyperparameters(self):
         """Config move entries may carry a hyperparameter mapping as the
         third JSON leg; it must reach the sampler's normalised spec."""
-        from mcmc_dynamics_tpu.cli.run import _normalize_move
-        from mcmc_dynamics_tpu.sampler.stretch import normalize_move
+        from mcmc_dynamics_jax.cli.run import _normalize_move
+        from mcmc_dynamics_jax.sampler.stretch import normalize_move
 
         cfg = [["de", 0.8, {"gamma0": 0.6}], ["snooker", 0.2]]
         norm = normalize_move(_normalize_move(cfg))
@@ -92,7 +92,7 @@ class TestRunTestsCli:
     def test_mock_verification_harness(self, tmp_path, monkeypatch):
         """The end-to-end mock-recovery CLI (the reference's bin/run_tests.py
         as an assert-based harness) passes on a small configuration."""
-        from mcmc_dynamics_tpu.cli.run_tests import main
+        from mcmc_dynamics_jax.cli.run_tests import main
 
         monkeypatch.chdir(tmp_path)
         rc = main(["-n", "250", "--seed", "3", "-o", str(tmp_path),
@@ -108,7 +108,7 @@ class TestBackgroundFrame:
         must be shifted identically (reference bin/run.py:441-442) or the
         mixture evaluates member and background in different frames."""
         import numpy as np
-        from mcmc_dynamics_tpu.cli.run import build_background
+        from mcmc_dynamics_jax.cli.run import build_background
 
         field = tmp_path / "field.csv"
         v_raw = 232.7 + 40.0 * np.random.default_rng(0).normal(size=50)
@@ -133,9 +133,9 @@ class TestBackgroundFrame:
             float(np.asarray(g0(np.full(1, 100.0), np.ones(1))))
 
     def test_rename_preserves_units(self, tmp_path):
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.cli.run import load_catalog
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.cli.run import load_catalog
+        from mcmc_dynamics_jax.utils import Table
 
         t = Table({"ra": u.Quantity([10.0], "deg"),
                    "dec": u.Quantity([-5.0], "deg"),

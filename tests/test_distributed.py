@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from mcmc_dynamics_tpu.parallel import (barrier, fetch, is_distributed,
+from mcmc_dynamics_jax.parallel import (barrier, fetch, is_distributed,
                                         is_primary, make_mesh, to_global)
-from mcmc_dynamics_tpu.parallel import distributed as dist
+from mcmc_dynamics_jax.parallel import distributed as dist
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -111,7 +111,7 @@ _WORKER = textwrap.dedent("""
     pid, nproc, port, outdir = (int(sys.argv[1]), int(sys.argv[2]),
                                 sys.argv[3], sys.argv[4])
 
-    from mcmc_dynamics_tpu.parallel import distributed as dist
+    from mcmc_dynamics_jax.parallel import distributed as dist
     assert dist.initialize(coordinator_address=f"localhost:{port}",
                            num_processes=nproc, process_id=pid) is True
     assert dist.is_distributed()
@@ -119,10 +119,10 @@ _WORKER = textwrap.dedent("""
     assert jax.device_count() == 2 * nproc
 
     import numpy as np
-    from mcmc_dynamics_tpu import units as u
-    from mcmc_dynamics_tpu.models import ConstantFit
-    from mcmc_dynamics_tpu.parallel import run_ensemble_sharded
-    from mcmc_dynamics_tpu.utils import DataReader
+    from mcmc_dynamics_jax import units as u
+    from mcmc_dynamics_jax.models import ConstantFit
+    from mcmc_dynamics_jax.parallel import run_ensemble_sharded
+    from mcmc_dynamics_jax.utils import DataReader
 
     RA_C, DEC_C = 56.345, -26.675
     rng = np.random.default_rng(0)
@@ -153,8 +153,8 @@ _WORKER = textwrap.dedent("""
 
     # checkpoint discipline: every process participates in the gather,
     # only the primary writes
-    from mcmc_dynamics_tpu.models.base import Runner
-    from mcmc_dynamics_tpu.sampler import EnsembleState
+    from mcmc_dynamics_jax.models.base import Runner
+    from mcmc_dynamics_jax.sampler import EnsembleState
     import jax.numpy as jnp
     state = EnsembleState(coords=res.final_coords, log_prob=res.final_log_prob,
                           key=res.final_key,
@@ -163,7 +163,7 @@ _WORKER = textwrap.dedent("""
     Runner.save_current_status_arrays(chain, lnp, state, prefix="dist")
 
     # temperature-parallel ladder over the same two hosts (tp x 4)
-    from mcmc_dynamics_tpu.parallel import run_tempered_sharded
+    from mcmc_dynamics_jax.parallel import run_tempered_sharded
     tp_mesh = dist.global_mesh(("tp",), (4,))
     tres = run_tempered_sharded(fit, fit.get_initials(8), jax.random.PRNGKey(3),
                                 n_steps=4, mesh=tp_mesh, swap_every=2)
@@ -171,7 +171,7 @@ _WORKER = textwrap.dedent("""
     assert tchain.shape == (8, 4, 4)
 
     # batched per-bin pipeline with the bin axis sharded across both hosts
-    from mcmc_dynamics_tpu.pipelines import fit_radial_bins
+    from mcmc_dynamics_jax.pipelines import fit_radial_bins
     bin_mesh = dist.global_mesh(("dp",), (4,))
     bres = fit_radial_bins(data, u.Quantity(RA_C, "deg"),
                            u.Quantity(DEC_C, "deg"), nstars=60, dlogr=0.01,
@@ -238,10 +238,10 @@ class TestTwoProcessLocalhost:
 
         # the distributed run must equal the same mesh shape run inside ONE
         # process (the virtual 8-device mesh): same dp folding, same psum
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.parallel import run_ensemble_sharded
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.parallel import run_ensemble_sharded
+        from mcmc_dynamics_jax.utils import DataReader
 
         ra_c, dec_c = 56.345, -26.675
         rng = np.random.default_rng(0)
@@ -275,14 +275,14 @@ _SHARD_CKPT_WORKER = textwrap.dedent("""
     pid, nproc, port, outdir = (int(sys.argv[1]), int(sys.argv[2]),
                                 sys.argv[3], sys.argv[4])
 
-    from mcmc_dynamics_tpu.parallel import distributed as dist
+    from mcmc_dynamics_jax.parallel import distributed as dist
     assert dist.initialize(coordinator_address=f"localhost:{port}",
                            num_processes=nproc, process_id=pid) is True
 
     import numpy as np
-    from mcmc_dynamics_tpu import units as u
-    from mcmc_dynamics_tpu.models import ConstantFit
-    from mcmc_dynamics_tpu.utils import DataReader
+    from mcmc_dynamics_jax import units as u
+    from mcmc_dynamics_jax.models import ConstantFit
+    from mcmc_dynamics_jax.utils import DataReader
 
     RA_C, DEC_C = 56.345, -26.675
     rng = np.random.default_rng(0)
@@ -427,7 +427,7 @@ _CLI_WORKER = textwrap.dedent("""
     # The regression this guards: cli.run.main must wire the distributed
     # runtime BEFORE any JAX computation (catalog load / model build), or
     # jax.distributed.initialize raises RuntimeError.
-    from mcmc_dynamics_tpu.cli.run import main
+    from mcmc_dynamics_jax.cli.run import main
     rc = main(["cfg.json", "--skip-binned", "--skip-profiles"])
     assert rc == 0
     assert jax.process_count() == nproc

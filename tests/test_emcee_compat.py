@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu.emcee_compat import (EnsembleSampler, backends,
+from mcmc_dynamics_jax.emcee_compat import (EnsembleSampler, backends,
                                              _normalize_moves)
 
 
@@ -213,7 +213,7 @@ class TestStateRoundTrip:
     def test_burn_in_idiom(self):
         """run_mcmc's return value is a State that can be passed straight back
         as initial_state (the canonical emcee burn-in pattern)."""
-        from mcmc_dynamics_tpu.emcee_compat import State
+        from mcmc_dynamics_jax.emcee_compat import State
 
         s = EnsembleSampler(16, 2, _jax_lnprob, seed=3)
         p0 = np.random.default_rng(0).normal(size=(16, 2))
@@ -234,7 +234,7 @@ class TestStateRoundTrip:
         s.run_mcmc(last, 3)
 
     def test_numpy_backend_returns_state(self):
-        from mcmc_dynamics_tpu.emcee_compat import State
+        from mcmc_dynamics_jax.emcee_compat import State
 
         s = EnsembleSampler(8, 2, _scipy_lnprob, seed=4)
         state = s.run_mcmc(np.random.default_rng(1).normal(size=(8, 2)), 5)
@@ -484,7 +484,7 @@ class TestHDFBackend:
     def test_bitwise_cross_process_resume(self, tmp_path):
         """An interrupted run resumed from the file by a *fresh* sampler
         equals the uninterrupted run bitwise (the PRNG key rides the file)."""
-        from mcmc_dynamics_tpu.emcee_compat import backends
+        from mcmc_dynamics_jax.emcee_compat import backends
 
         p0 = np.random.default_rng(1).normal(size=(16, 2))
         ref = self._run(backends.HDFBackend(str(tmp_path / "a.h5")), 3,
@@ -507,7 +507,7 @@ class TestHDFBackend:
         HDF5 never reclaims deleted-dataset storage, so a del/create per
         append used to leak (W*K + W + key) * 8 bytes per step."""
         import os
-        from mcmc_dynamics_tpu.emcee_compat import backends
+        from mcmc_dynamics_jax.emcee_compat import backends
 
         fn = str(tmp_path / "bloat.h5")
         s = EnsembleSampler(16, 2, _jax_lnprob, seed=4,
@@ -527,7 +527,7 @@ class TestHDFBackend:
         assert grown <= 5 * per_step_data + 4096, grown
 
     def test_numpy_path_resume(self, tmp_path):
-        from mcmc_dynamics_tpu.emcee_compat import backends
+        from mcmc_dynamics_jax.emcee_compat import backends
 
         p0 = np.zeros((8, 2))
 
@@ -549,7 +549,7 @@ class TestHDFBackend:
         np.testing.assert_array_equal(full, s.get_chain())
 
     def test_reader_surface_and_reset(self, tmp_path):
-        from mcmc_dynamics_tpu.emcee_compat import State, backends
+        from mcmc_dynamics_jax.emcee_compat import State, backends
 
         be = backends.HDFBackend(str(tmp_path / "c.h5"))
         p0 = np.random.default_rng(2).normal(size=(16, 2))
@@ -579,7 +579,7 @@ class TestHDFBackend:
         assert be.iteration == 0
 
     def test_shape_mismatch_rejected(self, tmp_path):
-        from mcmc_dynamics_tpu.emcee_compat import backends
+        from mcmc_dynamics_jax.emcee_compat import backends
 
         be = backends.HDFBackend(str(tmp_path / "d.h5"))
         self._run(be, 6, [5], np.random.default_rng(3).normal(size=(16, 2)))
@@ -636,7 +636,7 @@ class TestReviewRegressions:
         """Real emcee pre-grows the HDF5 datasets and advances an iteration
         attr; rows beyond it are zeros and must never be read or resumed."""
         import h5py
-        from mcmc_dynamics_tpu.emcee_compat import backends
+        from mcmc_dynamics_jax.emcee_compat import backends
 
         fn = str(tmp_path / "emcee.h5")
         rng = np.random.default_rng(0)
@@ -685,7 +685,7 @@ class TestReviewRegressions:
 
     def test_path_switch_clears_stale_rng_state(self, tmp_path):
         """numpy-path rng_state must not survive a jax-path append."""
-        from mcmc_dynamics_tpu.emcee_compat import backends
+        from mcmc_dynamics_jax.emcee_compat import backends
 
         fn = str(tmp_path / "switch.h5")
         be = backends.HDFBackend(fn)

@@ -1,16 +1,18 @@
-"""float32 (TPU-dtype) consistency: the library runs f64 in tests but f32 on TPU;
-verify the likelihood tiers agree across dtypes at the expected precision."""
+"""float32 (accelerator-dtype) consistency: the library runs f64 in tests but f32
+on the accelerator; verify the likelihood tiers agree across dtypes at the
+expected precision."""
 
 import math
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.models import ConstantFit, ModelFit
-from mcmc_dynamics_tpu.utils import DataReader
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.models import ConstantFit, ModelFit
+from mcmc_dynamics_jax.utils import DataReader
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -48,7 +50,7 @@ class TestFloat32Consistency:
         assert math.isclose(a, b, rel_tol=5e-5)
 
     def test_sufficient_stats_f32(self):
-        from mcmc_dynamics_tpu.ops import ConstantSufficientStats
+        from mcmc_dynamics_jax.ops import ConstantSufficientStats
 
         rng = np.random.default_rng(1)
         n = 1500
@@ -72,7 +74,7 @@ class TestFloat32Consistency:
         np.testing.assert_allclose(got, expect, rtol=2e-4)
 
     def test_jam_moments_f32(self):
-        from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
         mge = dict(lum_s=[10.0, 40.0], lum_q=[0.9, 0.85],
                    mass_s=[10.0, 40.0], mass_q=[0.9, 0.85])
@@ -100,7 +102,7 @@ class TestFloat32Consistency:
         unscaled f32 exponentials underflow to exactly 0 beyond ~13 sigma
         (VERDICT r2 weak item 2 — the engine fix replacing the build-time
         radius warning)."""
-        from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
         mge = dict(lum_i=np.array([5000.0, 1000.0]), lum_s=[10.0, 40.0],
                    lum_q=[0.9, 0.85], mass_i=np.array([12500.0, 2500.0]),
@@ -131,7 +133,7 @@ class TestDensityMixtureFloat32Corner:
         density (1e-300) underflowed to exactly 0: m = D/(D+f) hit 0/0.  The
         tier now evaluates the kernels' log-space formula off the
         float64-accurate ln_density."""
-        from mcmc_dynamics_tpu.models import ConstantFitGB
+        from mcmc_dynamics_jax.models import ConstantFitGB
 
         rng = np.random.default_rng(1)
         n = 300
@@ -166,7 +168,7 @@ class TestDensityMixtureFloat32Corner:
         chemo models) must not set the per-star scaling exponent — otherwise a
         far-out star's scaled normalisation underflows exactly like the
         unscaled one did."""
-        from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
         # narrow component has ZERO weight; real tracer is the wide one
         mge = dict(lum_i=np.array([0.0, 1000.0]), lum_s=[2.0, 40.0],
@@ -192,7 +194,7 @@ class TestDensityMixtureFloat32Corner:
         exponential exp(g - e_j) overflows to inf and 0 * inf = NaN unless
         the exponent is clamped at 0.  Both moments must stay finite and
         match the model with the dead component removed entirely."""
-        from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
         kwargs = dict(d=5.0, beta=0.1, kappa=0.5, mscale=2.0,
                       incl=math.radians(70.0), mbh=0.0, rbh=1.0)
@@ -215,3 +217,68 @@ class TestDensityMixtureFloat32Corner:
             want = np.asarray(getattr(r_ref, field))
             assert np.all(np.isfinite(got)), f"{field} not finite: {got}"
             np.testing.assert_allclose(got, want, rtol=5e-3, atol=1e-6)
+
+
+def _dots(fn, *args):
+    """The dot_general lines of ``fn``'s lowered StableHLO."""
+    text = jax.jit(fn).lower(*args).as_text()
+    return [line for line in text.splitlines() if "stablehlo.dot_general" in line]
+
+
+_BF16_X3 = ("lhs_precision_type = bf16, rhs_precision_type = bf16, "
+            "accumulation_type = f32")
+_HIGHEST = "precision = [HIGHEST, HIGHEST]"
+
+
+class TestContractionPrecision:
+    """The dot algorithm each precision site lowers to.  On an H100 a product
+    at DEFAULT or HIGH runs in TF32, which measured too coarse at all three
+    sites (PERF.md, precision per site); these pin the choices made there."""
+
+    @pytest.mark.parametrize("dtype,expect", [(jnp.float32, _BF16_X3),
+                                              (jnp.float64, _HIGHEST)])
+    def test_jam_pair_contraction(self, dtype, expect):
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
+
+        from test_jam_grid import LUM_I, LUM_Q, LUM_S, MASS_I
+
+        def moments(x, y):
+            return jam_los_moments(x, y, LUM_I, LUM_S, LUM_Q, MASS_I, LUM_S,
+                                   LUM_Q, d=5.0, beta=0.0, kappa=1.0,
+                                   mscale=2.0, incl=1.0).v2zz
+
+        xy = jnp.linspace(0.5, 50.0, 16, dtype=dtype)
+        dots = _dots(moments, xy, xy)
+        assert len(dots) == 1 and expect in dots[0], dots
+
+    def test_jam_grid_reconstruction(self):
+        from mcmc_dynamics_jax.models.jam.grid import (JamGridSpec,
+                                                       jam_grid_moments)
+
+        rng = np.random.default_rng(3)
+        dx, dy = rng.normal(0, 30, 200), rng.normal(0, 30, 200)
+        spec = JamGridSpec.build(dx, dy, n_r=32, n_phi=8, dtype=jnp.float32)
+
+        def moments(theta0):
+            # a dot-free stand-in engine: only the grid's own products remain
+            vz, v2zz, _ = jam_grid_moments(
+                spec, lambda x, y: (0.1 * x, 1.0 + x * x + y * y, x == x),
+                theta0)
+            return vz, v2zz
+
+        dots = _dots(moments, jnp.float32(0.3))
+        assert len(dots) == 6 and all(_HIGHEST in d for d in dots), dots
+
+    def test_tensor_tier_contractions(self):
+        from mcmc_dynamics_jax.ops import ModelTensorStats
+
+        from test_model_tensor import A_BOUNDS, R_BOUNDS, _box_params
+        from test_ops import _model_inputs
+
+        dxm, dym, v, verr2, mask = _model_inputs(n_stars=300)
+        stats = ModelTensorStats.build(dxm, dym, v, verr2, A_BOUNDS, R_BOUNDS,
+                                       mask=mask, s_max=1e6)
+        dots = _dots(stats.lnlike, jnp.asarray(_box_params(8), jnp.float32))
+        matmuls = [d for d in dots if _HIGHEST in d]
+        assert len(matmuls) == 3, dots
+        assert not any("[HIGH, HIGH]" in d or "TF32" in d for d in dots), dots

@@ -9,10 +9,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.expressions import (ExpressionError, compile_host, compile_jax,
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.expressions import (ExpressionError, compile_host, compile_jax,
                                            expression_names)
-from mcmc_dynamics_tpu.parameters import Parameter, Parameters
+from mcmc_dynamics_jax.parameters import Parameter, Parameters
 
 
 # --------------------------------------------------------------------------- units
@@ -97,7 +97,7 @@ class TestExpressions:
         compile_host("rng.normal(0, 1, size=n)", rng, allowed={"n"})
 
     def test_compiled_parameters_reject_unknown_lnprior_name(self):
-        from mcmc_dynamics_tpu.parameters import CompiledParameters
+        from mcmc_dynamics_jax.parameters import CompiledParameters
         params = Parameters(rng_seed=1)
         params.add("v_sys", value=0.0, unit="km/s", lnprior="norm.logpdf(valx, 0, 10)")
         with pytest.raises(ExpressionError, match="valx"):
@@ -106,7 +106,7 @@ class TestExpressions:
     def test_compiled_parameters_reject_evil_initials_at_build_time(self):
         # initials must validate when the config compiles, not on the first
         # sample_initials() call deep inside a run script
-        from mcmc_dynamics_tpu.parameters import CompiledParameters
+        from mcmc_dynamics_jax.parameters import CompiledParameters
         params = Parameters(rng_seed=1)
         params.add("v_sys", value=0.0, unit="km/s",
                    initials="__import__('os').system('true')")
@@ -203,7 +203,7 @@ class TestParameters:
 
     def test_bundled_configs_load(self):
         import pathlib
-        cfgdir = pathlib.Path(__file__).resolve().parents[1] / "mcmc_dynamics_tpu" / "config"
+        cfgdir = pathlib.Path(__file__).resolve().parents[1] / "mcmc_dynamics_jax" / "config"
         expected_params = {
             "constant.json": ["v_sys", "sigma_max", "v_maxx", "v_maxy",
                               "ra_center", "dec_center"],
@@ -313,7 +313,7 @@ class TestCompiledSnapshotIsolation:
         """CompiledParameters is a frozen snapshot: mutating the live
         Parameters afterwards must not change what the compiled object
         samples (its lnprior already enforced the compile-time bounds)."""
-        from mcmc_dynamics_tpu import Parameters
+        from mcmc_dynamics_jax import Parameters
 
         params = Parameters(rng_seed=0)
         params.add("x", value=1.0, min=0.0, max=2.0)
@@ -331,7 +331,7 @@ class TestCompiledSnapshotIsolation:
         free: the sampler walked a dead coordinate that expand() overwrote."""
         import jax.numpy as jnp
 
-        from mcmc_dynamics_tpu import Parameters
+        from mcmc_dynamics_jax import Parameters
 
         params = Parameters(rng_seed=0)
         params.add("a", value=1.0, min=0.0, max=2.0)
@@ -351,7 +351,7 @@ class TestParameterParityTail:
     reference-schema WRITING, and the HTML table."""
 
     def test_full_numeric_operator_protocol(self):
-        from mcmc_dynamics_tpu.parameters import Parameter
+        from mcmc_dynamics_jax.parameters import Parameter
 
         p = Parameter("x", value=7.5)
         assert float(p) == 7.5 and int(p) == 7 and bool(p) is True
@@ -378,7 +378,7 @@ class TestParameterParityTail:
         import json as _json
         import pathlib
 
-        from mcmc_dynamics_tpu.parameters import Parameters
+        from mcmc_dynamics_jax.parameters import Parameters
 
         src = pathlib.Path("/root/reference/mcmc_dynamics/config/model.json")
         if not src.exists():
@@ -406,13 +406,13 @@ class TestParameterParityTail:
             assert again[name].to_dict() == params[name].to_dict()
 
     def test_dumps_rejects_unknown_format(self):
-        from mcmc_dynamics_tpu.parameters import Parameters
+        from mcmc_dynamics_jax.parameters import Parameters
 
         with pytest.raises(ValueError, match="format"):
             Parameters().dumps(format="yaml")
 
     def test_html_table(self):
-        from mcmc_dynamics_tpu.models import ConstantFit
+        from mcmc_dynamics_jax.models import ConstantFit
 
         params = ConstantFit.default_parameters()
         html = params.to_html()

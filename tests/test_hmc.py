@@ -8,8 +8,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu.sampler import autocorr_time
-from mcmc_dynamics_tpu.sampler.hmc import init_hmc, run_hmc
+from mcmc_dynamics_jax.sampler import autocorr_time
+from mcmc_dynamics_jax.sampler.hmc import init_hmc, run_hmc
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -48,7 +48,7 @@ class TestHMC:
         res = run_hmc(lnprob, warm.final, n_steps=800, n_leapfrog=8)
         tau_hmc = autocorr_time(np.asarray(res.chain)).max()
 
-        from mcmc_dynamics_tpu.sampler import init_state, run_ensemble
+        from mcmc_dynamics_jax.sampler import init_state, run_ensemble
         st = init_state(lnprob, jnp.asarray(pos), jax.random.PRNGKey(2))
         ens = run_ensemble(lnprob, st, n_steps=800)
         tau_stretch = autocorr_time(np.asarray(ens.chain)).max()
@@ -57,9 +57,9 @@ class TestHMC:
 
     def test_on_model_likelihood(self):
         """HMC through a real model lnprob (bounds -> -inf rejections handled)."""
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(2)
         n = 200
@@ -91,7 +91,7 @@ class TestHMC:
     def test_jam_gradients_flow(self):
         """End-to-end gradient through the JAM engine inside HMC (a capability the
         reference's C physics cannot provide)."""
-        from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+        from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
         def lnprob(theta):
             mlr = theta[0]
@@ -136,7 +136,7 @@ class TestMassMatrixAdaptation:
         res_m = run_hmc(lnprob, warm2.final, n_steps=400, n_leapfrog=10,
                         mass_inv=scales ** 2)
 
-        from mcmc_dynamics_tpu.sampler import autocorr_time
+        from mcmc_dynamics_jax.sampler import autocorr_time
         tau_id = autocorr_time(np.asarray(res_id.chain))[1]
         tau_m = autocorr_time(np.asarray(res_m.chain))[1]
         assert tau_m * 3 < tau_id, (tau_m, tau_id)
@@ -147,9 +147,9 @@ class TestMassMatrixAdaptation:
     def test_runner_sample_hmc_uses_estimated_metric(self):
         """Runner.sample_hmc's windowed warmup handles the km/s-vs-arcsec
         scale split of a real model without hand-tuning."""
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(5)
         n = 150
@@ -172,9 +172,9 @@ class TestMassMatrixAdaptation:
         """n_warmup=0/1 cannot support a variance estimate; the old code path
         (identity mass, no phase-2 window) must be used instead of a NaN or
         collapsed metric."""
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(6)
         n = 80

@@ -15,7 +15,7 @@ from scipy import integrate
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu.models.jam.moments import (G_PC, PC_PER_ARCSEC_PER_KPC,
+from mcmc_dynamics_jax.models.jam.moments import (G_PC, PC_PER_ARCSEC_PER_KPC,
                                                   jam_los_moments)
 
 

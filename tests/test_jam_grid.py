@@ -11,9 +11,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu.models import Axisymmetric
-from mcmc_dynamics_tpu.models.jam.grid import JamGridSpec, jam_grid_moments
-from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+from mcmc_dynamics_jax.models import Axisymmetric
+from mcmc_dynamics_jax.models.jam.grid import JamGridSpec, jam_grid_moments
+from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
 from test_axisymmetric import (DEC_C, RA_C, _base_params, _mge_pair,
                                _mock_jam_data)
@@ -105,7 +105,7 @@ class TestGridMoments:
 
 class TestLnprobParity:
     def _fit(self, monkeypatch, mode, n=300, **extra):
-        monkeypatch.setenv("MCMC_TPU_JAM", mode)
+        monkeypatch.setenv("MCMC_JAM", mode)
         data, lum, mass = _mock_jam_data(n=n, seed=5)
         params = _base_params()
         for name in ("mlr", "kappa_x", "kappa_y"):
@@ -127,7 +127,7 @@ class TestLnprobParity:
         lp_grid = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         assert fit._jam_grid_spec() is None
         lp_dir = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
@@ -141,7 +141,7 @@ class TestLnprobParity:
 
     def test_grid_chunked_matches_vmap(self, monkeypatch):
         """jam_grid_chunk (the tier's own walker chunk, tuned separately from
-        lnprob_chunk on TPU) is a pure batching knob: lax.map(batch_size=c)
+        lnprob_chunk) is a pure batching knob: lax.map(batch_size=c)
         over the walkers must reproduce the un-chunked vmap to accumulation-
         order noise, and the chunk must salt the program cache."""
         fit = self._fit(monkeypatch, "grid")
@@ -167,7 +167,7 @@ class TestLnprobParity:
         tools/probe_jam_grid.py; this pins lnprob-level parity — the BH cusp
         is the steepest radial feature the 128-node log grid must resolve).
         Reference workload: the cjam IMBH fits, axisymmetric.py:288-310."""
-        monkeypatch.setenv("MCMC_TPU_JAM", "grid")
+        monkeypatch.setenv("MCMC_JAM", "grid")
         data, lum, mass = _mock_jam_data(n=300, seed=5)
         params = _base_params()
         for name in ("mlr", "kappa_x", "kappa_y"):
@@ -188,7 +188,7 @@ class TestLnprobParity:
         lp_grid = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         assert fit._jam_grid_spec() is None
         lp_dir = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
@@ -220,18 +220,18 @@ class TestLnprobParity:
         fit.jam_grid_min_stars = 100
         assert fit._jam_grid_spec() is not None      # now eligible
         salt_grid = fit.program_cache_salt()
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         assert fit.program_cache_salt() != salt_grid  # env is in the salt
 
     def test_free_center_rejected(self, monkeypatch):
-        monkeypatch.setenv("MCMC_TPU_JAM", "grid")
+        monkeypatch.setenv("MCMC_JAM", "grid")
         data, lum, mass = _mock_jam_data(n=120, seed=6)
         params = _base_params()
         params["ra_center"].set(fixed=False)
         fit = Axisymmetric(data, parameters=params, mge_mass=mass, mge_lum=lum)
         with pytest.raises(ValueError, match="fixed cluster centre"):
             fit._jam_grid_spec()
-        monkeypatch.setenv("MCMC_TPU_JAM", "auto")
+        monkeypatch.setenv("MCMC_JAM", "auto")
         assert fit._jam_grid_spec() is None           # auto falls back
 
     def test_custom_terms_subclass_rejected(self, monkeypatch):
@@ -239,13 +239,13 @@ class TestLnprobParity:
             def lnlike_terms(self, p, data):
                 return super().lnlike_terms(p, data)
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "grid")
+        monkeypatch.setenv("MCMC_JAM", "grid")
         data, lum, mass = _mock_jam_data(n=120, seed=7)
         fit = Custom(data, parameters=_base_params(), mge_mass=mass,
                      mge_lum=lum)
         with pytest.raises(ValueError, match="overrides the"):
             fit._jam_grid_spec()
-        monkeypatch.setenv("MCMC_TPU_JAM", "auto")
+        monkeypatch.setenv("MCMC_JAM", "auto")
         assert fit._jam_grid_spec() is None
 
 
@@ -274,7 +274,7 @@ class TestGridPosteriorCertification:
     :288-310."""
 
     def _certify(self, n_stars, n_walkers, n_steps, n_draws, monkeypatch):
-        monkeypatch.setenv("MCMC_TPU_JAM", "auto")
+        monkeypatch.setenv("MCMC_JAM", "auto")
         data, lum, mass = _mock_jam_data(n=n_stars, seed=5, mlr=2.0,
                                          kappa=0.5)
         params = _base_params()
@@ -299,7 +299,7 @@ class TestGridPosteriorCertification:
         th = jnp.asarray(draws, fit.dtype)
 
         lnp_grid = np.asarray(fit.build_lnprob_batched()(th))
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         assert fit._jam_grid_spec() is None
         lnp_dir = np.asarray(fit.build_lnprob_batched()(th))
         assert np.isfinite(lnp_grid).all() and np.isfinite(lnp_dir).all()
@@ -343,9 +343,9 @@ class TestProfilesGrid:
     ride the tier uncertified."""
 
     def _fit(self, monkeypatch, mode, n=300):
-        from mcmc_dynamics_tpu.models import AnalyticalProfiles
+        from mcmc_dynamics_jax.models import AnalyticalProfiles
 
-        monkeypatch.setenv("MCMC_TPU_JAM", mode)
+        monkeypatch.setenv("MCMC_JAM", mode)
         data, lum, mass = _mock_jam_data(n=n, seed=9)
         params = AnalyticalProfiles.default_parameters()
         fixed = dict(d=5.0, barq=0.4, beta=0.0, mbh=0.0, ra_center=RA_C,
@@ -381,7 +381,7 @@ class TestProfilesGrid:
         lp_grid = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         assert fit._jam_grid_spec() is None
         lp_dir = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
@@ -405,11 +405,11 @@ class TestChemoGrid:
     frame)."""
 
     def _fit(self, monkeypatch, mode, n=300):
-        from mcmc_dynamics_tpu.models import ChemoProfiles
+        from mcmc_dynamics_jax.models import ChemoProfiles
 
         from test_chemo import _data, _fixed_params, _tagged_mges
 
-        monkeypatch.setenv("MCMC_TPU_JAM", mode)
+        monkeypatch.setenv("MCMC_JAM", mode)
         data = _data(n=n, seed=1)
         lum, mass = _tagged_mges()
         params = _fixed_params(kappa_max_a=dict(min=-2.0, max=2.0),
@@ -433,7 +433,7 @@ class TestChemoGrid:
         lp_grid = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         assert fit._jam_grid_spec() is None
         lp_dir = np.asarray(fit.build_lnprob_batched()(
             jnp.asarray(pos, fit.dtype)))
@@ -453,7 +453,7 @@ class TestChemoGrid:
         inherit chemo's _grid_lnlike_terms OUT OF SYNC with its own direct
         path; the MRO-positional capability gate must reject it instead of
         silently serving diverging grid lnprobs (r4 advisor finding)."""
-        from mcmc_dynamics_tpu.models import ChemoProfiles
+        from mcmc_dynamics_jax.models import ChemoProfiles
 
         from test_chemo import _data, _fixed_params, _tagged_mges
 
@@ -461,7 +461,7 @@ class TestChemoGrid:
             def lnlike_terms(self, p, data):
                 return super().lnlike_terms(p, data)
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "grid")
+        monkeypatch.setenv("MCMC_JAM", "grid")
         data = _data(n=150, seed=2)
         lum, mass = _tagged_mges()
         params = _fixed_params(kappa_max_a=dict(min=-2.0, max=2.0))
@@ -470,5 +470,5 @@ class TestChemoGrid:
         fit.jam_grid_min_stars = 100
         with pytest.raises(ValueError, match="overrides the"):
             fit._jam_grid_spec()
-        monkeypatch.setenv("MCMC_TPU_JAM", "auto")
+        monkeypatch.setenv("MCMC_JAM", "auto")
         assert fit._jam_grid_spec() is None           # auto falls back

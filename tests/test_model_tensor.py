@@ -40,8 +40,8 @@ class TestBinnedTierPosteriorCertification:
     def test_posterior_unbiased_at_auto_threshold(self, monkeypatch):
         import jax
 
-        from mcmc_dynamics_tpu.mock import make_mock_cluster
-        from mcmc_dynamics_tpu.models import ModelFit
+        from mcmc_dynamics_jax.mock import make_mock_cluster
+        from mcmc_dynamics_jax.models import ModelFit
 
         n_stars, n_walkers, n_steps, n_draws = 16384, 16, 200, 192
         data, truth = make_mock_cluster(n_stars=n_stars, sigma_max=9.0,
@@ -60,7 +60,7 @@ class TestBinnedTierPosteriorCertification:
         params["a"].set(initials="rng.uniform(20, 45, size=n)")
         fit = ModelFit(data, parameters=params, seed=3)
 
-        monkeypatch.setenv("MCMC_TPU_LNPROB", "auto")
+        monkeypatch.setenv("MCMC_LNPROB", "auto")
         assert fit._sufficient_eligible() and not fit._tensor_eligible()
         binned = fit.build_lnprob_sufficient()
         pos = fit.get_initials(n_walkers)
@@ -73,7 +73,7 @@ class TestBinnedTierPosteriorCertification:
         th = jnp.asarray(draws, fit.dtype)
 
         lnp_binned = np.asarray(binned(th))
-        monkeypatch.setenv("MCMC_TPU_LNPROB", "direct")
+        monkeypatch.setenv("MCMC_LNPROB", "direct")
         lnp_direct = np.asarray(fit.build_lnprob_batched()(th))
         assert np.isfinite(lnp_binned).all() and np.isfinite(lnp_direct).all()
 
@@ -101,7 +101,7 @@ class TestModelTensorStats:
     def test_matches_direct_lnlike(self):
         """Exact in the star sum: f64 agreement with the direct likelihood is
         limited only by the Chebyshev truncation (1e-10 target)."""
-        from mcmc_dynamics_tpu.ops import ModelTensorStats
+        from mcmc_dynamics_jax.ops import ModelTensorStats
 
         dxm, dym, v, verr2, mask = _model_inputs()
         stats = ModelTensorStats.build(dxm, dym, v, verr2, A_BOUNDS, R_BOUNDS,
@@ -112,7 +112,7 @@ class TestModelTensorStats:
         np.testing.assert_allclose(got, expected, rtol=1e-8)
 
     def test_respects_mask(self):
-        from mcmc_dynamics_tpu.ops import ModelTensorStats
+        from mcmc_dynamics_jax.ops import ModelTensorStats
 
         dxm, dym, v, verr2, mask = _model_inputs(n_stars=600, seed=13)
         mask[300:] = 0.0
@@ -127,7 +127,7 @@ class TestModelTensorStats:
     def test_in_box_guard(self):
         """Walkers outside the (sigma_max, a, r_peak) grid are flagged; inside
         ones are not."""
-        from mcmc_dynamics_tpu.ops import ModelTensorStats
+        from mcmc_dynamics_jax.ops import ModelTensorStats
 
         dxm, dym, v, verr2, _ = _model_inputs(n_stars=400, seed=15)
         stats = ModelTensorStats.build(dxm, dym, v, verr2, A_BOUNDS, R_BOUNDS,
@@ -145,7 +145,7 @@ class TestModelTensorStats:
         """At f32-level truncation the (s, a) modes compress (measured ranks
         well under the degrees) and the compressed evaluation still matches
         the direct likelihood to the truncation target."""
-        from mcmc_dynamics_tpu.ops import ModelTensorStats
+        from mcmc_dynamics_jax.ops import ModelTensorStats
 
         dxm, dym, v, verr2, mask = _model_inputs()
         stats = ModelTensorStats.build(dxm, dym, v, verr2, A_BOUNDS, R_BOUNDS,
@@ -158,7 +158,7 @@ class TestModelTensorStats:
         np.testing.assert_allclose(got, expected, rtol=3e-5)
 
     def test_requires_finite_bounds(self):
-        from mcmc_dynamics_tpu.ops import ModelTensorStats
+        from mcmc_dynamics_jax.ops import ModelTensorStats
 
         dxm, dym, v, verr2, _ = _model_inputs(n_stars=100, seed=17)
         with pytest.raises(ValueError, match="finite positive"):
@@ -167,9 +167,9 @@ class TestModelTensorStats:
 
 class TestModelFitTensorDispatch:
     def _fit(self, n=400, a_max=600.0, r_max=600.0, seed=15):
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ModelFit
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ModelFit
+        from mcmc_dynamics_jax.utils import DataReader
 
         ra_c, dec_c = 56.345, -26.675
         rng = np.random.default_rng(seed)
@@ -202,14 +202,13 @@ class TestModelFitTensorDispatch:
         ]), fit.dtype)
 
         try:
-            os.environ["MCMC_TPU_LNPROB"] = "tensor"
+            os.environ["MCMC_LNPROB"] = "tensor"
             assert fit._tensor_eligible()
             fast = fit.build_lnprob_batched()
-            os.environ["MCMC_TPU_LNPROB"] = "direct"
-            os.environ["MCMC_TPU_DISABLE_PALLAS"] = "1"
+            os.environ["MCMC_LNPROB"] = "direct"
             direct = fit.build_lnprob_batched()
         finally:
-            del os.environ["MCMC_TPU_LNPROB"], os.environ["MCMC_TPU_DISABLE_PALLAS"]
+            del os.environ["MCMC_LNPROB"]
         np.testing.assert_allclose(np.asarray(fast(thetas)),
                                    np.asarray(direct(thetas)),
                                    rtol=1e-7, atol=1e-6)
@@ -221,11 +220,11 @@ class TestModelFitTensorDispatch:
             rng.normal(0, 3, 8), rng.normal(0, 3, 8), np.full(8, 100.0)])
         thetas[:4, 2] = 400.0   # a beyond its 300 arcsec prior bound
         try:
-            os.environ["MCMC_TPU_LNPROB"] = "tensor"
+            os.environ["MCMC_LNPROB"] = "tensor"
             lnp = np.asarray(fit.build_lnprob_batched()(
                 jnp.asarray(thetas, fit.dtype)))
         finally:
-            del os.environ["MCMC_TPU_LNPROB"]
+            del os.environ["MCMC_LNPROB"]
         assert np.isneginf(lnp[:4]).all()
         assert np.isfinite(lnp[4:]).all()
 
@@ -236,14 +235,14 @@ class TestModelFitTensorDispatch:
         assert fit._tensor_bounds() is None
         assert not fit._tensor_eligible()
         try:
-            os.environ["MCMC_TPU_LNPROB"] = "tensor"
+            os.environ["MCMC_LNPROB"] = "tensor"
             with pytest.raises(ValueError, match="finite positive"):
                 fit._tensor_eligible()
         finally:
-            del os.environ["MCMC_TPU_LNPROB"]
+            del os.environ["MCMC_LNPROB"]
 
     def test_gb_variants_opt_out(self):
-        from mcmc_dynamics_tpu.models import ModelFitGB
+        from mcmc_dynamics_jax.models import ModelFitGB
 
         fit, _ = self._fit()
         data = fit.data
@@ -256,7 +255,7 @@ class TestModelFitTensorDispatch:
                                   fixed=True)
         gfit = ModelFitGB(data, parameters=gparams)
         try:
-            os.environ["MCMC_TPU_LNPROB"] = "tensor"
+            os.environ["MCMC_LNPROB"] = "tensor"
             assert not gfit._tensor_eligible()
         finally:
-            del os.environ["MCMC_TPU_LNPROB"]
+            del os.environ["MCMC_LNPROB"]

@@ -10,12 +10,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.background import Gaussian, SingleStars
-from mcmc_dynamics_tpu.models import (ConstantFit, ConstantFitGB, DoubleModelFit,
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.background import Gaussian, SingleStars
+from mcmc_dynamics_jax.models import (ConstantFit, ConstantFitGB, DoubleModelFit,
                                       DoubleModelFitGB, ModelFit,
                                       ModelFitConstantBackground, ModelFitGB)
-from mcmc_dynamics_tpu.utils import DataReader
+from mcmc_dynamics_jax.utils import DataReader
 
 RA_C, DEC_C = 56.345, -26.675
 

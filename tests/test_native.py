@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mcmc_dynamics_tpu import native
-from mcmc_dynamics_tpu.utils.data import radial_bin_numbers
+from mcmc_dynamics_jax import native
+from mcmc_dynamics_jax.utils.data import radial_bin_numbers
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="native toolchain unavailable")
@@ -53,7 +53,7 @@ class TestNativeBinning:
         """Native C++ vs the PURE-NUMPY fallback.  radial_bin_numbers itself
         dispatches to the native path first, so the fallback must be forced
         (monkeypatched native -> None) or this comparison is a tautology."""
-        import mcmc_dynamics_tpu.native as native_mod
+        import mcmc_dynamics_jax.native as native_mod
 
         rng = np.random.default_rng(3)
         for n, nstars, dlogr in ((500, 50, 0.2), (1000, 80, 0.05), (120, 50, 0.3)):

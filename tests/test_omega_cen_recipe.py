@@ -20,7 +20,7 @@ GOLDENS = json.loads((REPO / "example" / "goldens" / "omega_cen_goldens.json")
 
 
 def _run_recipe(name, tmp_path, monkeypatch, extra_args=()):
-    from mcmc_dynamics_tpu.cli.run import main
+    from mcmc_dynamics_jax.cli.run import main
 
     cfg = json.loads((REPO / "example" / f"{name}.json").read_text())
     cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
@@ -33,7 +33,7 @@ def _run_recipe(name, tmp_path, monkeypatch, extra_args=()):
 
 def _bestfit(prefix, model_cls, cfg, tmp_path):
     """Recompute best-fit medians from the recipe's own checkpoint."""
-    from mcmc_dynamics_tpu.models import Runner
+    from mcmc_dynamics_jax.models import Runner
 
     chain = Runner.read_chain(str(tmp_path / f"{prefix}_chain.npz"))
     n_burn = cfg["sampling"]["n_burn"]
@@ -52,7 +52,7 @@ def _check_goldens(flat, names, golden):
 
 class TestOmegaCenFixed:
     def test_fixed_centre_recipe(self, tmp_path, monkeypatch):
-        from mcmc_dynamics_tpu.models import ModelFit
+        from mcmc_dynamics_jax.models import ModelFit
 
         cfg = _run_recipe("omega_cen_fixed", tmp_path, monkeypatch)
         prefix = cfg["prefix"]
@@ -78,7 +78,7 @@ class TestOmegaCenFixed:
             binned["sigma_max median"].iloc[-1]
 
         # the model profile table carries the 1- and 3-sigma bands
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax.utils import Table
         prof = Table.read(str(tmp_path / f"{prefix}_profile.ecsv"),
                           fmt="ascii.ecsv")
         for col in ("v_rot", "v_rot_lower_1s", "sigma", "sigma_upper_3s"):
@@ -87,7 +87,7 @@ class TestOmegaCenFixed:
 
 class TestOmegaCenCenter:
     def test_free_centre_recipe(self, tmp_path, monkeypatch):
-        from mcmc_dynamics_tpu.models import ConstantFit
+        from mcmc_dynamics_jax.models import ConstantFit
 
         cfg = _run_recipe("omega_cen_center", tmp_path, monkeypatch,
                           extra_args=("--skip-binned",))
@@ -162,7 +162,7 @@ class TestJamProductionPipeline:
         cfg_file.write_text(_json.dumps(cfg))
         monkeypatch.chdir(tmp_path)
 
-        from mcmc_dynamics_tpu.cli.run import main
+        from mcmc_dynamics_jax.cli.run import main
         assert main([str(cfg_file)]) == 0
 
         for suffix in ("_chain.npz", "_corner.png", "_profile.ecsv",
@@ -178,8 +178,8 @@ class TestAutoConvergenceMode:
         tau-driven auto-stop; n_burn defaults to 3 tau when unset."""
         import json as _json
 
-        from mcmc_dynamics_tpu.cli.run import main
-        from mcmc_dynamics_tpu.models import Runner
+        from mcmc_dynamics_jax.cli.run import main
+        from mcmc_dynamics_jax.models import Runner
 
         cfg = _json.loads((REPO / "example" / "omega_cen_fixed.json").read_text())
         cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
@@ -206,7 +206,7 @@ class TestTemperedRecipe:
         weighted stretch+DE move mixture, the ladder sharded over a tp device
         mesh from the parallel block — golden-checked like the production
         ensemble recipes."""
-        from mcmc_dynamics_tpu.models import ModelFit
+        from mcmc_dynamics_jax.models import ModelFit
 
         cfg = _run_recipe("omega_cen_tempered", tmp_path, monkeypatch,
                           extra_args=("--skip-binned",))
@@ -227,7 +227,7 @@ class TestConfigValidation:
     def test_unknown_sampler_rejected(self, tmp_path, monkeypatch):
         import json as _json
 
-        from mcmc_dynamics_tpu.cli.run import main
+        from mcmc_dynamics_jax.cli.run import main
 
         cfg = _json.loads((REPO / "example" / "omega_cen_fixed.json").read_text())
         cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
@@ -241,7 +241,7 @@ class TestConfigValidation:
     def test_mesh_axis_mismatch_rejected(self, tmp_path, monkeypatch):
         import json as _json
 
-        from mcmc_dynamics_tpu.cli.run import main
+        from mcmc_dynamics_jax.cli.run import main
 
         cfg = _json.loads((REPO / "example" / "omega_cen_fixed.json").read_text())
         cfg["data"]["file"] = str(REPO / cfg["data"]["file"])

@@ -8,11 +8,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.models import ConstantFit, ModelFit
-from mcmc_dynamics_tpu.parallel import (make_mesh, pad_star_axis,
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.models import ConstantFit, ModelFit
+from mcmc_dynamics_jax.parallel import (make_mesh, pad_star_axis,
                                         run_ensemble_sharded, star_sharded_lnprob)
-from mcmc_dynamics_tpu.utils import DataReader
+from mcmc_dynamics_jax.utils import DataReader
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -74,7 +74,7 @@ class TestWalkerSharding:
         assert chain.shape == (64, 400, 4)
 
         # compare against the single-device sampler posterior (same model & data)
-        from mcmc_dynamics_tpu.sampler import init_state, run_ensemble
+        from mcmc_dynamics_jax.sampler import init_state, run_ensemble
         lnprob = fit.build_lnprob()
         state = init_state(lnprob, jnp.asarray(pos, fit.dtype), jax.random.PRNGKey(1))
         ref = run_ensemble(lnprob, state, n_steps=400)
@@ -105,7 +105,7 @@ class TestWalkerSharding:
         """dp-only meshes run the model's fastest batched tier per shard; with
         the tensor tier forced, the sharded log_prob must equal the tier's
         own lnprob (the catalog collapses into the tables at build)."""
-        monkeypatch.setenv("MCMC_TPU_LNPROB", "tensor")
+        monkeypatch.setenv("MCMC_LNPROB", "tensor")
         params = ModelFit.default_parameters()
         params["ra_center"].set(value=RA_C, fixed=True)
         params["dec_center"].set(value=DEC_C, fixed=True)
@@ -158,7 +158,7 @@ class TestMeshShapes:
         mesh = make_mesh(("dp", "sp", "tp"))
         assert len(mesh.shape) == 3
         assert int(np.prod(list(mesh.shape.values()))) == 8
-        from mcmc_dynamics_tpu.parallel.mesh import factorize_devices
+        from mcmc_dynamics_jax.parallel.mesh import factorize_devices
         assert factorize_devices(8, 3) == (2, 2, 2)
         assert factorize_devices(12, 3) == (3, 2, 2)
         assert factorize_devices(7, 2) == (7, 1)
@@ -168,7 +168,7 @@ class TestMeshShapes:
     def test_sharded_program_cache_reuses_across_chunks(self):
         """Chunked sharded runs (the _call_sharded loop) must hit the compiled
         program cache — a rebuild per n_out chunk recompiles the whole scan."""
-        from mcmc_dynamics_tpu.parallel import sharded as sh
+        from mcmc_dynamics_jax.parallel import sharded as sh
 
         fit = _fit(n=80, seed=6)
         mesh = make_mesh(("dp",), (4,), devices=jax.devices()[:4])
@@ -195,8 +195,8 @@ class TestJamSharding:
     equal the single-device lnprob exactly (up to float reduction order)."""
 
     def _jam_fit(self, n=96, seed=0):
-        from mcmc_dynamics_tpu.models import Axisymmetric
-        from mcmc_dynamics_tpu.utils import MgeReader, Table
+        from mcmc_dynamics_jax.models import Axisymmetric
+        from mcmc_dynamics_jax.utils import MgeReader, Table
 
         lum = MgeReader(Table({"i": u.Quantity([5000.0, 1000.0], "solLum/pc2"),
                                "s": u.Quantity([10.0, 40.0], "arcsec"),
@@ -245,7 +245,7 @@ class TestJamSharding:
         per walker shard, partial interpolation sums psum'd.  The dp x sp
         result must equal the single-device GRID lnprob (same tier, up to
         float reduction order)."""
-        monkeypatch.setenv("MCMC_TPU_JAM", "grid")
+        monkeypatch.setenv("MCMC_JAM", "grid")
         fit = self._jam_fit(n=93, seed=4)     # 93 % 4 != 0 -> sp padding
         fit.jam_grid_min_stars = 16
         fit.jam_grid_orders = (48, 8)         # parity needs no accuracy
@@ -276,11 +276,11 @@ class TestJamSharding:
     def test_chemo_grid_tier_on_sp_mesh(self, monkeypatch):
         """ChemoProfiles' per-population _grid_lnlike_terms override rides
         the same sharded partial tier (inherited from Axisymmetric)."""
-        from mcmc_dynamics_tpu.models import ChemoProfiles
+        from mcmc_dynamics_jax.models import ChemoProfiles
 
         from test_chemo import _data, _fixed_params, _tagged_mges
 
-        monkeypatch.setenv("MCMC_TPU_JAM", "grid")
+        monkeypatch.setenv("MCMC_JAM", "grid")
         data = _data(n=90, seed=3)
         lum, mass = _tagged_mges()
         params = _fixed_params(kappa_max_a=dict(min=-2.0, max=2.0),
@@ -311,7 +311,7 @@ class TestJamSharding:
         # the DIRECT chemo path must star-shard too (the per-star spatial
         # fractions used to be a full-length closure constant, which broke
         # on any sp mesh): exact match with the unsharded lnprob
-        monkeypatch.setenv("MCMC_TPU_JAM", "direct")
+        monkeypatch.setenv("MCMC_JAM", "direct")
         sharded = star_sharded_lnprob(fit, mesh, sp_axis="sp")
         theta = jnp.asarray(pos[0], fit.dtype)
         assert math.isclose(float(sharded(theta)), float(fit.lnprob(theta)),
@@ -449,10 +449,10 @@ class TestRunnerMeshIntegration:
 
 class TestPartialTierSharding:
     def test_star_sharded_partial_tier_matches_generic(self):
-        """The fused partial-sum path (psum of per-shard kernel sums + prior
-        added once) must equal the generic per-walker reduction. On CPU the
-        Pallas kernel is ineligible, so a pure-JAX partial implementation is
-        injected to exercise exactly the sharded wiring."""
+        """The partial-sum path (psum of per-shard sums + prior added once)
+        must equal the generic per-walker reduction.  An independent pure-JAX
+        partial implementation is injected to exercise exactly the sharded
+        wiring."""
         fit = _fit(n=123, seed=12, cls=ModelFit)
         fit.parameters["r_peak"].set(min=1.0, max=600.0)
         fit.parameters["a"].set(min=1.0, max=600.0)

@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.models import ConstantFit
-from mcmc_dynamics_tpu.sampler import autocorr_time, init_state, run_ensemble
-from mcmc_dynamics_tpu.utils import DataReader
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.models import ConstantFit
+from mcmc_dynamics_jax.sampler import autocorr_time, init_state, run_ensemble
+from mcmc_dynamics_jax.utils import DataReader
 
 RA_C, DEC_C = 56.345, -26.675
 

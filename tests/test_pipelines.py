@@ -6,10 +6,10 @@ import numpy as np
 
 import jax
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.parallel import make_mesh
-from mcmc_dynamics_tpu.pipelines import fit_radial_bins
-from mcmc_dynamics_tpu.utils import DataReader
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.parallel import make_mesh
+from mcmc_dynamics_jax.pipelines import fit_radial_bins
+from mcmc_dynamics_jax.utils import DataReader
 
 RA_C, DEC_C = 56.345, -26.675
 
@@ -35,7 +35,7 @@ def _mock_cluster(n=800, seed=7):
 class TestFitRadialBins:
     def test_batched_bins_recover_profile(self):
         data, truth = _mock_cluster()
-        from mcmc_dynamics_tpu.models import ConstantFit
+        from mcmc_dynamics_jax.models import ConstantFit
         params = ConstantFit.default_parameters()
         params["sigma_max"].set(initials="rng.lognormal(mean=2.0, sigma=0.4, size=n)")
         params["v_maxx"].set(initials="rng.normal(loc=0, scale=2, size=n)")
@@ -72,7 +72,7 @@ class TestModelFitBins:
     def test_model_fit_as_bin_model(self):
         """fit_radial_bins accepts any centre-fixed model class (here ModelFit):
         the packed bins carry both geometry representations."""
-        from mcmc_dynamics_tpu.models import ModelFit
+        from mcmc_dynamics_jax.models import ModelFit
 
         data, _ = _mock_cluster(n=500, seed=9)
         params = ModelFit.default_parameters()
@@ -109,7 +109,7 @@ class TestProgramCache:
     def test_identical_calls_hit_cache_and_match(self):
         """A second identical binned fit reuses the jitted program (no recompile)
         and reproduces the same chains bitwise."""
-        from mcmc_dynamics_tpu import pipelines
+        from mcmc_dynamics_jax import pipelines
 
         data, _ = _mock_cluster(n=300, seed=9)
         pipelines._PROGRAM_CACHE.clear()
@@ -122,8 +122,8 @@ class TestProgramCache:
         np.testing.assert_array_equal(np.asarray(a.chains), np.asarray(b.chains))
 
     def test_different_parameters_do_not_share_programs(self):
-        from mcmc_dynamics_tpu import pipelines
-        from mcmc_dynamics_tpu.models import ConstantFit
+        from mcmc_dynamics_jax import pipelines
+        from mcmc_dynamics_jax.models import ConstantFit
 
         data, _ = _mock_cluster(n=300, seed=9)
         pipelines._PROGRAM_CACHE.clear()
@@ -141,10 +141,10 @@ class TestDispersionOnlySummary:
         """v_maxx/v_maxy fixed (dispersion-only binned fit) used to crash
         summary() with AttributeError; the rotation rows are now omitted."""
         import numpy as np
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.pipelines import fit_radial_bins
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.pipelines import fit_radial_bins
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(0)
         n = 400
@@ -167,7 +167,7 @@ class TestDispersionOnlySummary:
 
 class TestBucketedPacking:
     def test_size_buckets_partition(self):
-        from mcmc_dynamics_tpu.pipelines import _size_buckets
+        from mcmc_dynamics_jax.pipelines import _size_buckets
 
         # one giant outer bin: must split off so 15 small bins stop paying 4096
         counts = np.array([1024] * 15 + [16384])
@@ -187,7 +187,7 @@ class TestBucketedPacking:
         """Bucketing is a pure packing change: per-bin chains are bitwise
         identical to the single-block layout (padded lanes are masked out of
         every likelihood sum)."""
-        import mcmc_dynamics_tpu.pipelines as pl
+        import mcmc_dynamics_jax.pipelines as pl
 
         # skewed catalog: inner bins ~120 stars, outer bin ~1200
         rng = np.random.default_rng(3)
@@ -233,7 +233,7 @@ class TestBucketedPacking:
         padding to the mesh extent (regression: the padded-slot PRNG keys were
         legacy uint32 arrays and could not be concatenated with the typed key
         arrays the multi-bucket path carries)."""
-        import mcmc_dynamics_tpu.pipelines as pl
+        import mcmc_dynamics_jax.pipelines as pl
 
         rng = np.random.default_rng(3)
         # inner stars spread over ~0.8 dex (-> ~120-star bins); outer stars in

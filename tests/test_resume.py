@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.models import ConstantFit
-from mcmc_dynamics_tpu.profiling import SamplerTelemetry, benchmark_lnprob
-from mcmc_dynamics_tpu.utils import DataReader
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.models import ConstantFit
+from mcmc_dynamics_jax.profiling import SamplerTelemetry, benchmark_lnprob
+from mcmc_dynamics_jax.utils import DataReader
 
 RA_C, DEC_C = 56.345, -26.675
 

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_dynamics_tpu.sampler import (autocorr_time, effective_sample_size,
+from mcmc_dynamics_jax.sampler import (autocorr_time, effective_sample_size,
                                        gelman_rubin, init_state, run_ensemble,
                                        stretch_step)
 
@@ -143,8 +143,8 @@ class TestDiagnostics:
         (get_chain/get_log_prob, step-major, with discard/thin/flat) plus
         get_autocorr_time with the 50-tau short-chain guard."""
         import pytest
-        from mcmc_dynamics_tpu.models.base import SamplerResult
-        from mcmc_dynamics_tpu.sampler import AutocorrError
+        from mcmc_dynamics_jax.models.base import SamplerResult
+        from mcmc_dynamics_jax.sampler import AutocorrError
 
         rng = np.random.default_rng(3)
         W, S, K = 6, 40, 3
@@ -221,9 +221,9 @@ class TestDifferentialEvolutionMove:
 
     def test_de_runner_integration_and_unknown_move_rejected(self):
         import jax.numpy as jnp
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(3)
         n = 150
@@ -286,7 +286,7 @@ class TestSnookerMove:
         direction or the projected difference degenerates to zero."""
         import jax
         import jax.numpy as jnp
-        from mcmc_dynamics_tpu.sampler.stretch import propose_snooker
+        from mcmc_dynamics_jax.sampler.stretch import propose_snooker
 
         # pool rows are one-hot * (row index + 1): recover the chosen indices
         # from the proposal algebra by brute force over many keys
@@ -305,7 +305,7 @@ class TestSnookerMove:
         run with the snooker move must produce finite, advancing chains."""
         import jax
         import jax.numpy as jnp
-        from mcmc_dynamics_tpu.sampler.stretch import propose_snooker
+        from mcmc_dynamics_jax.sampler.stretch import propose_snooker
 
         rng = np.random.default_rng(1)
         active = jnp.asarray(rng.normal(size=(8, 3)))
@@ -386,7 +386,7 @@ class TestMoveMixtures:
                                   np.asarray(r_d2.final.coords))
 
     def test_invalid_mixture_specs_rejected(self):
-        from mcmc_dynamics_tpu.sampler.stretch import normalize_move
+        from mcmc_dynamics_jax.sampler.stretch import normalize_move
 
         assert normalize_move("de") == (("de", 1.0, ()),)
         norm = normalize_move((("de", 2.0), ("snooker", 2.0)))
@@ -405,10 +405,10 @@ class TestMoveMixtures:
 
     def test_mixture_under_sharding(self):
         import jax.numpy as jnp
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.parallel import make_mesh
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.parallel import make_mesh
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(9)
         n = 60
@@ -433,7 +433,7 @@ class TestMoveMixtures:
 class TestMoveValidationRegressions:
     def test_snooker_rejects_tiny_pool(self):
         import jax
-        from mcmc_dynamics_tpu.sampler.stretch import propose_snooker
+        from mcmc_dynamics_jax.sampler.stretch import propose_snooker
 
         with pytest.raises(ValueError, match="pool of >= 3"):
             propose_snooker(jnp.zeros((2, 3)), jnp.zeros((2, 3)),
@@ -442,7 +442,7 @@ class TestMoveValidationRegressions:
     def test_negative_mixture_weight_rejected(self):
         """Negative weights used to pass if the SUM was positive, silently
         routing every walker to the last move."""
-        from mcmc_dynamics_tpu.sampler.stretch import normalize_move
+        from mcmc_dynamics_jax.sampler.stretch import normalize_move
 
         with pytest.raises(ValueError, match="positive"):
             normalize_move((("de", -1.0), ("snooker", 2.0)))

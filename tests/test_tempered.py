@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu.sampler import init_state, run_ensemble
-from mcmc_dynamics_tpu.sampler.tempered import (init_tempered, log_evidence,
+from mcmc_dynamics_jax.sampler import init_state, run_ensemble
+from mcmc_dynamics_jax.sampler.tempered import (init_tempered, log_evidence,
                                                 make_beta_ladder, run_tempered)
 
 
@@ -94,9 +94,9 @@ class TestShardedTempering:
     temperature per tp-rank, swaps as even-odd ppermute neighbour exchanges."""
 
     def _fit(self, seed=3):
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.models import ConstantFit
-        from mcmc_dynamics_tpu.utils import DataReader
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.models import ConstantFit
+        from mcmc_dynamics_jax.utils import DataReader
 
         rng = np.random.default_rng(0)
         n = 150
@@ -114,7 +114,7 @@ class TestShardedTempering:
         return ConstantFit(data, parameters=params, seed=seed)
 
     def test_matches_single_device_tempering(self):
-        from mcmc_dynamics_tpu.parallel import make_mesh
+        from mcmc_dynamics_jax.parallel import make_mesh
 
         fit = self._fit()
         mesh = make_mesh(("tp",), (8,))
@@ -135,7 +135,7 @@ class TestShardedTempering:
         """ppermute exchanges must actually move states between ranks —
         nonzero swap acceptance at every adjacent pair."""
         import jax
-        from mcmc_dynamics_tpu.parallel import make_mesh, run_tempered_sharded
+        from mcmc_dynamics_jax.parallel import make_mesh, run_tempered_sharded
 
         fit = self._fit()
         mesh = make_mesh(("tp",), (8,))
@@ -151,7 +151,7 @@ class TestShardedTempering:
 
     def test_mesh_without_axis_rejected(self):
         import jax
-        from mcmc_dynamics_tpu.parallel import make_mesh, run_tempered_sharded
+        from mcmc_dynamics_jax.parallel import make_mesh, run_tempered_sharded
 
         fit = self._fit()
         mesh = make_mesh(("dp",), (8,))
@@ -165,8 +165,8 @@ class TestShardedTempering:
         chain bitwise — the ODD split exercises the global-step swap-phase
         alignment (per-level lnP recompute is deterministic)."""
         import jax
-        from mcmc_dynamics_tpu.parallel import make_mesh, run_tempered_sharded
-        from mcmc_dynamics_tpu.parallel import tempered as pt
+        from mcmc_dynamics_jax.parallel import make_mesh, run_tempered_sharded
+        from mcmc_dynamics_jax.parallel import tempered as pt
 
         fit = self._fit(seed=7)
         mesh = make_mesh(("tp",), (8,))
@@ -213,7 +213,7 @@ class TestShardedTempering:
     def test_sample_tempered_state_resume_both_paths(self):
         """Runner.sample_tempered(state=...) continues the ladder where a
         prior run stopped, on the mesh and on a single device."""
-        from mcmc_dynamics_tpu.parallel import make_mesh
+        from mcmc_dynamics_jax.parallel import make_mesh
 
         fit = self._fit(seed=9)
         mesh = make_mesh(("tp",), (8,))
@@ -276,7 +276,7 @@ class TestShardedTemperingRegressions:
         phase was pinned to 1 and the even pairs (incl. the cold pair) never
         swapped."""
         import jax
-        from mcmc_dynamics_tpu.parallel import make_mesh, run_tempered_sharded
+        from mcmc_dynamics_jax.parallel import make_mesh, run_tempered_sharded
 
         fit = TestShardedTempering._fit(TestShardedTempering())
         mesh = make_mesh(("tp",), (8,))
@@ -290,8 +290,8 @@ class TestShardedTemperingRegressions:
         """res.final.key must be the post-run key: a resumed segment may not
         replay the first segment's random stream."""
         import jax
-        from mcmc_dynamics_tpu.parallel import make_mesh, run_tempered_sharded
-        from mcmc_dynamics_tpu.sampler.stretch import key_to_arrays
+        from mcmc_dynamics_jax.parallel import make_mesh, run_tempered_sharded
+        from mcmc_dynamics_jax.sampler.stretch import key_to_arrays
 
         fit = TestShardedTempering._fit(TestShardedTempering())
         mesh = make_mesh(("tp",), (8,))

@@ -6,8 +6,8 @@ import math
 import numpy as np
 import pytest
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.utils import (DataReader, RadialProfile, Table,
+from mcmc_dynamics_jax import units as u
+from mcmc_dynamics_jax.utils import (DataReader, RadialProfile, Table,
                                      calc_cartesian_pm, calc_xy_offset,
                                      get_amplitude_and_angle,
                                      get_perspective_rotation, radial_bin_numbers)
@@ -163,7 +163,7 @@ class TestDataReader:
 
 class TestPlots:
     def test_chain_and_corner_smoke(self, tmp_path):
-        from mcmc_dynamics_tpu.utils.plots import corner_plot, plot_chain
+        from mcmc_dynamics_jax.utils.plots import corner_plot, plot_chain
 
         rng = np.random.default_rng(0)
         chain = rng.normal(size=(8, 60, 3)).cumsum(axis=1) * 0.05 \
@@ -180,7 +180,7 @@ class TestPlots:
         assert f2.stat().st_size > 5000
 
     def test_profile_plot_smoke(self, tmp_path):
-        from mcmc_dynamics_tpu.utils.plots import ProfilePlot
+        from mcmc_dynamics_jax.utils.plots import ProfilePlot
 
         r = np.logspace(0, 2, 20)
         pp = ProfilePlot()
@@ -196,7 +196,7 @@ class TestPlots:
 
     def test_kde_contours_and_significance(self):
         from scipy import stats
-        from mcmc_dynamics_tpu.utils.plots import (get_kde_contours,
+        from mcmc_dynamics_jax.utils.plots import (get_kde_contours,
                                                    get_mapping_significance)
 
         rng = np.random.default_rng(0)
@@ -214,7 +214,7 @@ class TestAmplitudeFillIn:
         """tan(theta_0) = v_maxy/v_maxx, so v_maxx = v_maxy / tan (the
         reference has the two fill-ins inverted; corrected here)."""
         import numpy as np
-        from mcmc_dynamics_tpu.utils import get_amplitude_and_angle
+        from mcmc_dynamics_jax.utils import get_amplitude_and_angle
 
         rng = np.random.default_rng(0)
         vx = 3.0 + 0.01 * rng.normal(size=4000)
@@ -235,8 +235,8 @@ class TestUnitsTableRegressions:
         the whitespace-split ECSV round-trip."""
         import io
         import numpy as np
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.utils import Table
 
         t = Table({"r mean": np.array([1.0, 2.0]),
                    "v_max median": np.array([3.0, 4.0])})
@@ -251,7 +251,7 @@ class TestUnitsTableRegressions:
         import io
         import numpy as np
         import pytest
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax.utils import Table
 
         text = ("# %ECSV 1.0\n# ---\n# datatype:\n"
                 "# - {name: a, datatype: float64}\n"
@@ -267,8 +267,8 @@ class TestUnitsTableRegressions:
     def test_scaled_dimensionless_and_dex_units(self):
         import numpy as np
         import pytest
-        from mcmc_dynamics_tpu import units as u
-        from mcmc_dynamics_tpu.utils import Table
+        from mcmc_dynamics_jax import units as u
+        from mcmc_dynamics_jax.utils import Table
 
         q = u.Quantity(1.0, u.arcmin) / u.Quantity(1.0, u.deg)
         assert abs(float(np.asarray(q)) - 1.0 / 60.0) < 1e-12
@@ -280,7 +280,7 @@ class TestUnitsTableRegressions:
             t.value("lg", "arcmin")   # log10 values must not convert linearly
 
     def test_unit_algebra_and_parse_edge_cases(self):
-        from mcmc_dynamics_tpu import units as u
+        from mcmc_dynamics_jax import units as u
 
         a = u.deg * u.Quantity(2.0, u.arcmin)       # used to CONVERT
         b = u.Quantity(2.0, u.arcmin) * u.deg

@@ -1,4 +1,4 @@
-"""Micro-benchmark: JAM batched-lnprob walker chunking on the attached TPU.
+"""Micro-benchmark: JAM batched-lnprob walker chunking on the attached device.
 
 The batched Axisymmetric lnprob bounds its live pair-table footprint by
 chunking the walker axis with ``lax.map(batch_size=lnprob_chunk)``
@@ -27,9 +27,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from mcmc_dynamics_tpu import units as u
-    from mcmc_dynamics_tpu.models import Axisymmetric
-    from mcmc_dynamics_tpu.utils import MgeReader, Table
+    from mcmc_dynamics_jax import units as u
+    from mcmc_dynamics_jax.models import Axisymmetric
+    from mcmc_dynamics_jax.utils import MgeReader, Table
     from bench import _mock_catalog
 
     kv = dict(x.split("=") for x in sys.argv[1:] if "=" in x)
@@ -38,7 +38,7 @@ def main():
     n_steps = int(kv.get("steps", 100))
     n_stars = int(kv.get("nstars", 1000))
     if "jam" in kv:
-        os.environ["MCMC_TPU_JAM"] = kv["jam"]
+        os.environ["MCMC_JAM"] = kv["jam"]
 
     # same model/catalog as bench_jam (bench.py) so rates are comparable
     rng = np.random.default_rng(2)
@@ -65,7 +65,7 @@ def main():
          "kappa_y": rng.uniform(-0.1, 0.1, W)}
     pos = np.column_stack([d[n] for n in free])
 
-    from mcmc_dynamics_tpu.sampler import init_state, run_ensemble
+    from mcmc_dynamics_jax.sampler import init_state, run_ensemble
 
     for chunk in chunks:
         fit.lnprob_chunk = chunk

@@ -39,8 +39,8 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
-from mcmc_dynamics_tpu.models.jam.grid import JamGridSpec, jam_grid_moments
-from mcmc_dynamics_tpu.models.jam.moments import jam_los_moments
+from mcmc_dynamics_jax.models.jam.grid import JamGridSpec, jam_grid_moments
+from mcmc_dynamics_jax.models.jam.moments import jam_los_moments
 
 # flattened, multi-scale MGE (same family as the bench/test fixtures)
 LUM_I = np.array([8000.0, 4000.0, 1000.0, 200.0])
